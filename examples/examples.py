@@ -46,7 +46,7 @@ def example_stft(outdir):
     audio, sr = load_audio()
     mono = audio.mean(axis=1)
     wl, window, step = _analysis_params(sr)
-    spec = np.abs(zaftpu.asnumpy(zaftpu.stft(mono, window, step)))[1:wl // 2 + 1]
+    spec = np.abs(np.asarray(zaftpu.stft(mono, window, step)))[1:wl // 2 + 1]
     plt.figure(figsize=(14, 7))
     zaftpu.specshow(spec, len(mono), sr, xtick_step=1, ytick_step=1000)
     plt.title("Spectrogram (dB)")
@@ -60,16 +60,16 @@ def example_istft(outdir):
     """Estimate the center and sides from a stereo file (masked ISTFT)."""
     audio, sr = load_audio()
     wl, window, step = _analysis_params(sr)
-    stft1 = zaftpu.asnumpy(zaftpu.stft(audio[:, 0], window, step))
-    stft2 = zaftpu.asnumpy(zaftpu.stft(audio[:, 1], window, step))
+    stft1 = np.asarray(zaftpu.stft(audio[:, 0], window, step))
+    stft2 = np.asarray(zaftpu.stft(audio[:, 1], window, step))
     nf = wl // 2 + 1
     mag1, mag2 = np.abs(stft1[:nf]), np.abs(stft2[:nf])
     mask1 = np.minimum(mag1, mag2) / np.maximum(mag1, 1e-30)
     mask2 = np.minimum(mag1, mag2) / np.maximum(mag2, 1e-30)
     center1 = np.concatenate((mask1, mask1[-2:0:-1])) * stft1
     center2 = np.concatenate((mask2, mask2[-2:0:-1])) * stft2
-    sig1 = zaftpu.asnumpy(zaftpu.istft(center1, window, step))
-    sig2 = zaftpu.asnumpy(zaftpu.istft(center2, window, step))
+    sig1 = np.asarray(zaftpu.istft(center1, window, step))
+    sig2 = np.asarray(zaftpu.istft(center2, window, step))
     center = np.stack([sig1, sig2], axis=1)[:len(audio)]
     sides = audio[:len(center)] - center
     zaftpu.wavwrite(center, sr, os.path.join(outdir, "center_file.wav"))
@@ -108,7 +108,7 @@ def example_melspectrogram(outdir):
     mono = audio.mean(axis=1)
     wl, window, step = _analysis_params(sr)
     fbank = zaftpu.melfilterbank(sr, wl, 128)
-    melspec = zaftpu.asnumpy(zaftpu.melspectrogram(mono, window, step, fbank))
+    melspec = np.asarray(zaftpu.melspectrogram(mono, window, step, fbank))
     plt.figure(figsize=(14, 5))
     zaftpu.melspecshow(melspec, len(mono), sr, wl, xtick_step=1)
     plt.title("Mel spectrogram (dB)")
@@ -124,7 +124,7 @@ def example_mfcc(outdir):
     mono = audio.mean(axis=1)
     wl, window, step = _analysis_params(sr)
     fbank = zaftpu.melfilterbank(sr, wl, 40)
-    mfccs = zaftpu.asnumpy(zaftpu.mfcc(mono, window, step, fbank, 20))
+    mfccs = np.asarray(zaftpu.mfcc(mono, window, step, fbank, 20))
     dmfccs = np.diff(mfccs, n=1, axis=1)
     ddmfccs = np.diff(dmfccs, n=1, axis=1)
     plt.figure(figsize=(14, 7))
@@ -160,7 +160,7 @@ def example_cqtspectrogram(outdir):
     audio, sr = load_audio()
     mono = audio.mean(axis=1)
     kernel = zaftpu.cqtkernel(sr, 24, 55, 3520)
-    spec = zaftpu.asnumpy(zaftpu.cqtspectrogram(mono, sr, 25, kernel))
+    spec = np.asarray(zaftpu.cqtspectrogram(mono, sr, 25, kernel))
     plt.figure(figsize=(14, 5))
     zaftpu.cqtspecshow(spec, 25, 24, 55, xtick_step=1)
     plt.title("CQT spectrogram (dB)")
@@ -175,7 +175,7 @@ def example_cqtchromagram(outdir):
     audio, sr = load_audio()
     mono = audio.mean(axis=1)
     kernel = zaftpu.cqtkernel(sr, 24, 55, 3520)
-    chroma = zaftpu.asnumpy(zaftpu.cqtchromagram(mono, sr, 25, 24, kernel))
+    chroma = np.asarray(zaftpu.cqtchromagram(mono, sr, 25, 24, kernel))
     plt.figure(figsize=(14, 3))
     zaftpu.cqtchromshow(chroma, 25, xtick_step=1)
     plt.title("CQT chromagram")
@@ -194,7 +194,7 @@ def example_dct(outdir):
     outs = {}
     plt.figure(figsize=(14, 7))
     for i, ttype in enumerate((1, 2, 3, 4)):
-        mine = zaftpu.asnumpy(zaftpu.dct(segment, ttype))
+        mine = np.asarray(zaftpu.dct(segment, ttype))
         ref = scipy.fftpack.dct(segment, type=ttype, norm="ortho")
         outs[f"dct{ttype}"] = mine
         outs[f"dct{ttype}_diff"] = mine - ref
@@ -224,8 +224,8 @@ def example_dst(outdir):
     outs = {}
     plt.figure(figsize=(14, 7))
     for i, (fwd, inv) in enumerate(pairs):
-        fwd_out = zaftpu.asnumpy(zaftpu.dst(segment, fwd))
-        rec = zaftpu.asnumpy(zaftpu.dst(fwd_out, inv))
+        fwd_out = np.asarray(zaftpu.dst(segment, fwd))
+        rec = np.asarray(zaftpu.dst(fwd_out, inv))
         outs[f"dst{fwd}"] = fwd_out
         outs[f"dst{fwd}_recon_err"] = rec - segment
         plt.subplot(3, 4, i + 1)
@@ -251,7 +251,7 @@ def example_mdct(outdir):
     audio, sr = load_audio()
     mono = audio.mean(axis=1)
     window = kbd(512, 5.0)
-    coeffs = np.abs(zaftpu.asnumpy(zaftpu.mdct(mono, window)))
+    coeffs = np.abs(np.asarray(zaftpu.mdct(mono, window)))
     plt.figure(figsize=(14, 7))
     zaftpu.specshow(coeffs, len(mono), sr, xtick_step=1, ytick_step=1000)
     plt.title("MDCT (dB)")
@@ -267,7 +267,7 @@ def example_imdct(outdir):
     mono = audio.mean(axis=1)
     window = vorbis(2048)
     coeffs = zaftpu.mdct(mono, window)
-    rec = zaftpu.asnumpy(zaftpu.imdct(coeffs, window))[:len(mono)]
+    rec = np.asarray(zaftpu.imdct(coeffs, window))[:len(mono)]
     diff = mono[:len(rec)] - rec
     y_max = np.max(np.abs(diff))
     plt.figure(figsize=(14, 7))
@@ -292,8 +292,8 @@ def example_griffinlim(outdir):
     mono = audio.mean(axis=1)[:10 * sr].astype(np.float32)
     wl, window, step = _analysis_params(sr)
     window = window.astype(np.float32)
-    magnitude = np.abs(zaftpu.asnumpy(zaftpu.stft(mono, window, step)))[:wl // 2 + 1]
-    rebuilt = zaftpu.asnumpy(zaftpu.griffin_lim(magnitude, window, step,
+    magnitude = np.abs(np.asarray(zaftpu.stft(mono, window, step)))[:wl // 2 + 1]
+    rebuilt = np.asarray(zaftpu.griffin_lim(magnitude, window, step,
                                             iterations=50))
     zaftpu.wavwrite(rebuilt, sr, os.path.join(outdir, "griffinlim.wav"))
     plt.figure(figsize=(14, 7))

@@ -22,7 +22,7 @@ def main():
     cells = [cell_md(
         "# zaftpu examples\n\n"
         "The 12 examples of the reference (Zaf-Python `examples.ipynb`)\n"
-        "recreated against the TPU-native `zaftpu` API. Figures display\n"
+        "recreated against the `zaftpu` API. Figures display\n"
         "inline; run top to bottom.\n"),
         cell_code(
             "import os\n"

@@ -3,8 +3,7 @@
 Usage: ``python tests/make_golden_fixture.py`` (requires /root/reference).
 Round 1 pinned parity on a 1-s synthetic signal only; this file pins the
 reference's outputs on its own universal fixture ``audio_file.wav``
-(README.md:727-729) so parity is gated offline against environment drift
-(VERDICT.md round 1, item 6).
+(README.md:727-729) so parity is gated offline against environment drift.
 
 Full outputs are too large to commit (the f64 STFT alone is 32 MB), so each
 transform stores (a) a deterministic frame/sample subset bit-exactly and

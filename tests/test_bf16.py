@@ -1,12 +1,10 @@
-"""bf16 MXU fast-path gates (VERDICT.md round 1, item 5).
+"""bf16 operator-GEMM fast-path gates.
 
 ``zaftpu.compute_dtype("bfloat16")`` lowers operator-matmul operands to bf16
-with f32 accumulation — but only where the roofline says bf16 can pay
-(policy.BF16_EXEMPT, VERDICT.md round 2, item 7): the CQT's
-bandwidth-bound operator GEMMs lower (+98% at 55.6 dB on v5e,
-docs/tpu_results/bf16.json), while MFCC and melspectrogram are exempt
-(rfft-bound; measured +1% for 35.9 dB) and must stay bit-identical to the
-f32 path under the dial.
+with f32 accumulation — but only where the operator GEMMs are big enough to
+pay (policy.BF16_EXEMPT): the CQT's 32k-contraction operator GEMMs lower,
+while MFCC and melspectrogram are exempt (their tiny GEMMs sit next to the
+rfft) and must stay bit-identical to the f32 path under the dial.
 """
 
 import numpy as np
@@ -62,8 +60,8 @@ def test_cqt_bf16_accuracy(x32, kern):
 
 
 def test_mfcc_bf16_exempt(x32, fbank):
-    """MFCC is roofline-exempt (measured +1% for 35.9 dB on v5e): the dial
-    must not change it."""
+    """MFCC is exempt (its (T, 40) x (40, 40) DCT is tiny, and the log
+    domain amplifies bf16 noise): the dial must not change it."""
     win = hamming(WL).astype(np.float32)
     ref = np.asarray(zaftpu.mfcc(x32, win, STEP, fbank, 20))
     with zaftpu.compute_dtype("bfloat16"):
@@ -131,21 +129,21 @@ def test_sharded_bf16_equivalent(x32, kern, fbank):
     np.testing.assert_allclose(got_m, ref_m, rtol=1e-4, atol=1e-6)
 
 def test_f32_matmul_requests_highest_precision():
-    """The f32 operator-matmul path must request Precision.HIGHEST: XLA's
-    default TPU matmul truncates f32 operands to bf16 (one MXU pass), which
-    would make the f32 path bit-identical to the bf16 path on hardware
-    (observed on-chip 2026-08-17: SNR(bf16 vs f32) = inf). CPU tests cannot
-    observe the truncation itself, so pin the precision request in the jaxpr.
+    """The f32 operator-matmul path must request Precision.HIGHEST: without
+    it XLA may run an f32 matmul at reduced precision (TF32 on the GPU,
+    about three decimal digits). CPU tests cannot observe the truncation
+    itself, so pin the precision request in the jaxpr (tests/test_gpu.py
+    measures it on a card).
     """
     import jax
     import jax.numpy as jnp
 
     from zaftpu.core import policy
 
-    jaxpr = jax.make_jaxpr(policy.mxu_matmul)(
+    jaxpr = jax.make_jaxpr(policy.operator_matmul)(
         jnp.zeros((4, 8), jnp.float32), jnp.zeros((8, 3), jnp.float32))
     dots = [e for e in jaxpr.jaxpr.eqns if e.primitive.name == "dot_general"]
-    assert dots, "mxu_matmul f32 path must lower to dot_general"
+    assert dots, "operator_matmul f32 path must lower to dot_general"
     for eqn in dots:
         assert eqn.params["precision"] == (
             jax.lax.Precision.HIGHEST, jax.lax.Precision.HIGHEST)
@@ -153,13 +151,13 @@ def test_f32_matmul_requests_highest_precision():
 
 def test_bf16_matmul_stays_single_pass():
     """The bf16 path must NOT request HIGHEST (that would defeat the one-pass
-    MXU speedup): default precision with bf16 operands is the fast mode."""
+    bf16 speedup): default precision with bf16 operands is the fast mode."""
     import jax
     import jax.numpy as jnp
 
     from zaftpu.core import policy
 
-    jaxpr = jax.make_jaxpr(policy.mxu_matmul)(
+    jaxpr = jax.make_jaxpr(policy.operator_matmul)(
         jnp.zeros((4, 8), jnp.float32), jnp.zeros((8, 3), jnp.bfloat16))
     dots = [e for e in jaxpr.jaxpr.eqns if e.primitive.name == "dot_general"]
     assert dots
@@ -168,7 +166,7 @@ def test_bf16_matmul_stays_single_pass():
             jax.lax.Precision.HIGHEST, jax.lax.Precision.HIGHEST)
 
 def test_precision_lever(monkeypatch):
-    """ZAFTPU_PRECISION selects the exact-path MXU decomposition depth."""
+    """ZAFTPU_PRECISION selects the exact-path matmul precision."""
     import jax
 
     from zaftpu.core import policy

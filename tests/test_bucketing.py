@@ -1,4 +1,4 @@
-"""Length-bucketing retrace hygiene (VERDICT.md round 1, item 9).
+"""Length-bucketing retrace hygiene.
 
 Sharded transforms pad signal lengths up to a frames-per-shard quantum
 (``ZAFTPU_BUCKET_FRAMES``) and slice true-length outputs eagerly, so an
@@ -39,8 +39,8 @@ def test_one_trace_serves_many_lengths(mesh, monkeypatch):
     """In split mode (ZAFTPU_SHARDED_FUSE=0 — the many-length sweep
     configuration) the jitted sharded STFT core must compile once per
     bucket, not once per signal length. The default fused mode instead
-    trades per-length retraces for single-program throughput (VERDICT
-    round 4 item 1); its correctness across lengths is gated below and in
+    trades per-length retraces for single-program throughput; its
+    correctness across lengths is gated below and in
     tests/test_sharding.py."""
     monkeypatch.setenv("ZAFTPU_SHARDED_FUSE", "0")
     monkeypatch.setenv("ZAFTPU_BUCKET_FRAMES", "64")

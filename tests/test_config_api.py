@@ -1,4 +1,4 @@
-"""The parameter-config calling convention (VERDICT.md round 2, item 6).
+"""The parameter-config calling convention.
 
 ``zaftpu.config``'s frozen dataclasses are the public parameter objects:
 every transform accepts ``config=XxxConfig(...)`` in place of its positional
@@ -9,7 +9,7 @@ one-ulp f32 tolerance rather than bitwise equality because XLA's *CPU*
 threadpool reductions are not run-to-run deterministic under host load
 (two executions of the very same jitted program on the very same input can
 differ in the last f32 bit — see tests/test_determinism.py's documented
-escape hatch; TPU executions are deterministic).
+escape hatch).
 """
 
 import numpy as np

@@ -1,4 +1,4 @@
-"""Trace-coherent env-flag dispatch (VERDICT.md round 2, item 5).
+"""Trace-coherent env-flag dispatch.
 
 Every ``ZAFTPU_*`` flag consulted at trace time must take effect when flipped
 *between* two calls of the same shape: :func:`zaftpu.core.dispatch.zjit` keys
@@ -145,101 +145,3 @@ def test_zjit_preserves_signature_statics(x32, win32):
     assert out.shape == (WL, t) and out.dtype == np.complex64
 
 
-def test_scoped_vmem_twin_selection(monkeypatch):
-    """The raised-scoped-VMEM predicate tracks the split4 fused dispatch
-    config; the wrapper gates it on backend and records the decision in
-    budget_raised(), which stays False under an outer user trace
-    (compiler_options are illegal on nested jits — ADVICE round 4 medium:
-    kernels must degrade there instead of OOMing the default budget)."""
-    import jax
-
-    from zaftpu.core import dispatch as disp
-
-    monkeypatch.setenv("ZAFTPU_PRECISION", "split4")
-    monkeypatch.setenv("ZAFTPU_PALLAS", "1")
-    monkeypatch.setenv("ZAFTPU_FUSED", "1")
-    assert disp._wants_scoped_vmem() is True
-
-    seen = []
-
-    @disp.zjit
-    def body(x):
-        seen.append(disp.budget_raised())
-        return x * 2
-
-    body(jax.numpy.zeros(()))
-    # On TPU the wrapper engages the vmem twin and raises the budget; on
-    # CPU there is no scoped stack and the plain twin runs.
-    on_tpu = jax.default_backend() == "tpu"
-    assert seen == [on_tpu]
-
-    seen.clear()
-
-    def outer(x):
-        return body(x)  # zjit nested under a user jit: plain twin inlines
-
-    # Fresh shape so the nested call retraces instead of hitting the cache.
-    jax.jit(outer)(jax.numpy.zeros((2,)))
-    assert seen == [False]
-
-    monkeypatch.setenv("ZAFTPU_PRECISION", "highest")
-    assert disp._wants_scoped_vmem() is False
-
-
-def test_budget_degradations_off_budget(monkeypatch):
-    """Budget-hungry kernel dispatches fall back when the budget is not
-    raised: the split4 fused analysis kernel is skipped and the slab-CQT
-    block drops to 256 — but only on a real TPU backend (interpret-mode
-    runs have no scoped-VMEM stack)."""
-    import jax
-
-    from zaftpu.core import dispatch as disp
-    from zaftpu.pallas import cqtslab as pcqtslab
-    from zaftpu.pallas import fused as pfused
-
-    monkeypatch.setenv("ZAFTPU_PRECISION", "split4")
-    monkeypatch.setenv("ZAFTPU_PALLAS", "1")
-    on_tpu = jax.default_backend() == "tpu"
-    assert disp.budget_raised() is False
-    if on_tpu:
-        assert pfused.budget_ok() is False
-        assert pcqtslab.block_for_budget() == 256
-    else:
-        assert pfused.budget_ok() is True
-        assert pcqtslab.block_for_budget() == pcqtslab.BLOCK_FRAMES
-
-    token = disp._BUDGET_RAISED.set(True)
-    try:
-        assert pfused.budget_ok() is True
-        assert pcqtslab.block_for_budget() == pcqtslab.BLOCK_FRAMES
-    finally:
-        disp._BUDGET_RAISED.reset(token)
-
-
-def test_cqt_scheme_resolution(monkeypatch):
-    """The CQT-local split4 scheme defaults ON (VERDICT round 4 item 7: the
-    measured-better mode must not be opt-in), defers to an explicitly
-    pinned global precision, and honors its own override lever."""
-    from zaftpu.config import DispatchConfig
-    from zaftpu.transforms import cqt as cqt_mod
-
-    monkeypatch.delenv("ZAFTPU_PRECISION", raising=False)
-    monkeypatch.delenv("ZAFTPU_CQT_SCHEME", raising=False)
-    assert cqt_mod._slab_scheme_split4() is True
-    snap_default = DispatchConfig.current()
-
-    monkeypatch.setenv("ZAFTPU_PRECISION", "highest")
-    assert cqt_mod._slab_scheme_split4() is False
-    # Pinning the dial must RETRACE even though the resolved precision
-    # string is unchanged ("highest" either way).
-    assert DispatchConfig.current() != snap_default
-
-    monkeypatch.setenv("ZAFTPU_PRECISION", "split4")
-    assert cqt_mod._slab_scheme_split4() is True
-
-    monkeypatch.setenv("ZAFTPU_PRECISION", "highest")
-    monkeypatch.setenv("ZAFTPU_CQT_SCHEME", "split4")
-    assert cqt_mod._slab_scheme_split4() is True
-    monkeypatch.setenv("ZAFTPU_CQT_SCHEME", "exact")
-    monkeypatch.delenv("ZAFTPU_PRECISION", raising=False)
-    assert cqt_mod._slab_scheme_split4() is False

@@ -1,4 +1,4 @@
-"""Four-step MXU matmul FFT vs NumPy's FFT."""
+"""Four-step matmul FFT vs NumPy's FFT."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -54,7 +54,7 @@ def test_non_power_of_two_raises():
 
 def test_engine_switch_stft_istft(monkeypatch):
     """ZAFTPU_FFT=matmul routes the whole STFT/ISTFT round trip through the
-    four-step MXU engine with the same results."""
+    four-step matmul engine with the same results."""
     import zaftpu
     from zaftpu.core.windows import hamming
 
@@ -95,7 +95,7 @@ def test_engine_switch_mdct(monkeypatch):
 
 
 class TestDirectDft:
-    """Direct DFT-as-GEMM mode: full-width MXU matmuls for small N (the
+    """Direct DFT-as-GEMM mode: full-width matmuls for small N (the
     STFT/ISTFT hot-path formulation — contraction dim N instead of the
     four-step's sqrt(N))."""
 
@@ -145,9 +145,8 @@ class TestDirectDft:
 
     @pytest.mark.parametrize("n", [512, 511, 2048])
     def test_full_from_half_mirror(self, n):
-        """The plane-gather mirror (concat + interior-only index gather —
-        reversing the complex minor dim is a slow lane relayout on TPU) must
-        reproduce np.fft.fft's full spectrum exactly, even and odd N."""
+        """The plane-gather mirror (concat + interior-only index gather)
+        must reproduce np.fft.fft's full spectrum exactly, even and odd N."""
         from zaftpu.core.fft import full_from_half
 
         x = RNG.standard_normal((3, n))
@@ -266,18 +265,18 @@ class TestPackedRfft:
 
 class TestAutoMode:
     def test_auto_selects_engine_by_backend(self, monkeypatch):
-        """ZAFTPU_FFT default (auto) = matmul engine on TPU, native FFT on
-        CPU; explicit matmul/native override either way."""
+        """ZAFTPU_FFT default (auto) = XLA's native FFT on every backend
+        (cuFFT on the GPU); explicit matmul/native override either way."""
         import jax
 
         from zaftpu.core import fft as fft_mod
 
         monkeypatch.delenv("ZAFTPU_FFT", raising=False)
-        assert fft_mod.engine_selected() is False  # CPU test env
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-        assert fft_mod.engine_selected() is True
-        monkeypatch.setenv("ZAFTPU_FFT", "native")
-        assert fft_mod.engine_selected() is False
-        monkeypatch.setenv("ZAFTPU_FFT", "matmul")
-        monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
-        assert fft_mod.engine_selected() is True
+        for backend in ("cpu", "gpu"):
+            monkeypatch.setattr(jax, "default_backend", lambda b=backend: b)
+            assert fft_mod.engine_selected() is False
+            monkeypatch.setenv("ZAFTPU_FFT", "native")
+            assert fft_mod.engine_selected() is False
+            monkeypatch.setenv("ZAFTPU_FFT", "matmul")
+            assert fft_mod.engine_selected() is True
+            monkeypatch.delenv("ZAFTPU_FFT")

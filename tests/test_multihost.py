@@ -50,7 +50,7 @@ def test_two_process_mesh_end_to_end():
     # Skip ONLY on startup-phase failures: once a worker prints its "mesh
     # ready" sentinel the coordinator and mesh are up, so a later error
     # mentioning e.g. "coordinator" (an assertion message, a teardown
-    # warning) must FAIL, not skip (VERDICT round 4 item 9).
+    # warning) must FAIL, not skip.
     started = "mesh ready" in proc.stdout
     if (proc.returncode != 0 and not started
             and any(m in out for m in _COORDINATOR_ENV_FAILURES)):

@@ -167,7 +167,7 @@ def test_block_reader_fallback_matches_native(i16_file, monkeypatch):
 
 def test_malformed_zero_channel_header(native_lib, tmp_path):
     """A fmt chunk with channels=0/bits=0 must return an error code, not
-    SIGFPE the process (ADVICE round 1: read_block lacked wav_info's
+    SIGFPE the process (read_block once lacked wav_info's
     validation)."""
     import ctypes
     import struct

@@ -254,7 +254,7 @@ def test_istft_sharded_direct_engine(signal, window, mesh, monkeypatch,
     prep-then-bucketed-core pair under ZAFTPU_SHARDED_FUSE=0 — and must
     stay value-identical to the single-device engine synthesis
     (zaf.py:144-243; the CPU suite otherwise never exercises this path
-    because the engine is TPU-auto)."""
+    because the default engine is native)."""
     monkeypatch.setenv("ZAFTPU_SHARDED_FUSE", fuse)
     monkeypatch.setenv("ZAFTPU_FFT", "matmul")
     spec = np.asarray(zaftpu.stft(signal, window, STEP))

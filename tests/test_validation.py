@@ -1,4 +1,4 @@
-"""Input-validation gates (VERDICT.md round 1, item 7).
+"""Input-validation gates.
 
 The reference silently misbehaves on these inputs: non-COLA windows divide
 by a near-zero gain (zaf.py:241), odd MDCT windows are floored (zaf.py:1029),

@@ -118,8 +118,8 @@ class DispatchConfig:
     """Hashable snapshot of every trace-time ``ZAFTPU_*`` dispatch flag.
 
     Library programs consult these flags *while tracing* (engine selection in
-    ``core/fft.py``, precision/dtype policy in ``core/policy.py``, kernel
-    dispatch in ``zaftpu/pallas``). jit caches therefore must be keyed on the
+    ``core/fft.py``, precision/dtype policy in ``core/policy.py``, the
+    sharded program structure). jit caches therefore must be keyed on the
     snapshot — otherwise flipping a flag after a shape has been seen silently
     reuses the stale trace (a user A/B-ing engines in one notebook process
     would get right numbers under wrong labels). :func:`current` is read
@@ -134,26 +134,7 @@ class DispatchConfig:
 
     fft: str = "auto"
     fft_direct_max: int = 4096
-    cfft: str = ""
-    mirror: str = ""
-    mirror_strategy: str = "rev"
-    pallas: str = "auto"
-    fused: str = ""
-    fused2: str = ""
-    melfuse: str = ""
-    fullspec: str = ""
-    synth: str = ""
     sharded_fuse: str = ""
-    cqt_scheme: str = "auto"
-    # Set by the zjit wrapper per call (dataclasses.replace), NOT read from
-    # the environment here: whether the raised scoped-VMEM budget applies
-    # to the trace — consulted at trace time by kernel dispatch
-    # (dispatch.budget_raised), so it must key the cache.
-    budget: bool = False
-    # Probe-only block-size levers, still trace-time inputs (CLAUDE.md
-    # trace-coherence rule: every flag a trace consults keys the cache).
-    fused_block: str = ""
-    synth_block: str = ""
     precision: str = "highest"
     matmul_dtype: str = ""
 
@@ -169,23 +150,7 @@ class DispatchConfig:
         return cls(
             fft=os.environ.get("ZAFTPU_FFT", "auto"),
             fft_direct_max=direct_max,
-            cfft=os.environ.get("ZAFTPU_CFFT", ""),
-            mirror=os.environ.get("ZAFTPU_MIRROR", ""),
-            mirror_strategy=os.environ.get("ZAFTPU_MIRROR_STRATEGY", "rev"),
-            pallas=os.environ.get("ZAFTPU_PALLAS", "auto"),
-            fused=os.environ.get("ZAFTPU_FUSED", ""),
-            fused2=os.environ.get("ZAFTPU_FUSED2", ""),
-            melfuse=os.environ.get("ZAFTPU_MELFUSE", ""),
-            fullspec=os.environ.get("ZAFTPU_FULLSPEC", ""),
-            synth=os.environ.get("ZAFTPU_SYNTH", ""),
             sharded_fuse=os.environ.get("ZAFTPU_SHARDED_FUSE", ""),
-            # Fold the precision dial's SET/UNSET distinction in via the
-            # CQT scheme resolution (auto differs when ZAFTPU_PRECISION is
-            # explicitly pinned vs defaulted — transforms/cqt).
-            cqt_scheme=os.environ.get("ZAFTPU_CQT_SCHEME", "auto") + (
-                ":pinned" if os.environ.get("ZAFTPU_PRECISION") else ""),
-            fused_block=os.environ.get("ZAFTPU_FUSED_BLOCK", ""),
-            synth_block=os.environ.get("ZAFTPU_SYNTH_BLOCK", ""),
             precision=os.environ.get("ZAFTPU_PRECISION", "highest").lower(),
             matmul_dtype=("bfloat16"
                           if _policy.matmul_dtype() is not None else ""),

@@ -1,12 +1,11 @@
 """Dispatch-coherent jit: trace caches keyed on the ZAFTPU flag snapshot.
 
 Every transform's device program is shaped at *trace time* by the
-``ZAFTPU_*`` environment flags (FFT engine selection, matmul precision,
-Pallas kernel dispatch, mirror strategy) and by the
-:func:`zaftpu.core.policy.compute_dtype` context. A bare ``jax.jit`` caches
-traces by shapes/statics only, so flipping a flag after a shape has been
-seen would silently reuse the stale program — an A/B in a notebook would
-report right numbers under wrong labels (VERDICT.md round 2, weak #4).
+``ZAFTPU_*`` environment flags (FFT engine selection, matmul precision) and
+by the :func:`zaftpu.core.policy.compute_dtype` context. A bare ``jax.jit``
+caches traces by shapes/statics only, so flipping a flag after a shape has
+been seen would silently reuse the stale program — an A/B in a notebook
+would report right numbers under wrong labels.
 
 :func:`zjit` fixes this structurally: the wrapped function gains a
 keyword-only ``_dispatch`` **static argument** and every call passes the
@@ -17,34 +16,11 @@ pays two compiles total, not one per flip.
 
 (The snapshot must be a true static argument: two ``jax.jit`` objects over
 the same Python function share their underlying trace cache, so keying a
-table of jit instances on the snapshot does NOT isolate traces — measured
-here before this design was adopted.)
-
-Scoped-VMEM budget twin
------------------------
-Some Pallas kernels make XLA's layout assignment stage buffers in scoped
-VMEM beyond the default 16 MiB (the split4 fused analysis kernel at a
-window of grid lengths — docs/tpu_results/split4_grid.json; the slab-CQT
-kernel at block 512 ~21.5M; the fused synthesis kernel's two-component
-operator ~21M). ``compiler_options`` are only legal on a TOP-LEVEL jit, so
-every zjit carries a twin compiled with a raised budget and the wrapper
-picks per call. Which calls need it is a per-site property: zjit accepts a
-``scoped_vmem`` predicate (evaluated at call time, config-only) so only the
-transforms that can actually contain a budget-hungry kernel pay the twin's
-extra compile cache (ADVICE round 4, low #4).
-
-Inside a USER's outer ``jax.jit`` the twin cannot engage (nested
-compiler_options are forbidden; the plain twin inlines). The wrapper
-records whether the budget is raised in a context variable —
-:func:`budget_raised` — and the kernel dispatch sites consult it to degrade
-gracefully (skip the split4 fused kernel, drop the slab block to 256)
-instead of compiling a program that OOMs the default scoped budget outside
-the guarded() wrapper's reach (ADVICE round 4, medium).
+table of jit instances on the snapshot does NOT isolate traces.)
 """
 
 from __future__ import annotations
 
-import contextvars
 import functools
 import inspect
 
@@ -52,47 +28,17 @@ import jax
 
 from zaftpu.config import DispatchConfig
 
-# Scoped-VMEM budget for the raised twin. 24 MiB covers every measured
-# consumer (split4 fused analysis ~19.7M; the fused synthesis kernels incl.
-# the two-component ISTFT operator). DO NOT raise it further "for slack":
-# the scoped budget steals VMEM from XLA's own buffer pipelining, measured
-# -12% on the split4 fused STFT and -13% on the synthesis kernels at 32768
-# (docs/tpu_results/round5_kernels2.json + the r5k3/r5k4 A/B grids,
-# round-5 hardware session). ZAFTPU_VMEM_LIMIT_KIB overrides (read once at
-# import — the twins are built at decoration time).
-import os as _os
 
-_VMEM_LIMIT_KIB = _os.environ.get("ZAFTPU_VMEM_LIMIT_KIB", "24576")
-
-_BUDGET_RAISED = contextvars.ContextVar("zaftpu_vmem_budget", default=False)
-
-
-def budget_raised() -> bool:
-    """Is the current (or enclosing) top-level jit the raised-scoped-VMEM
-    twin? Kernel dispatch sites whose programs exceed the default 16 MiB
-    scoped budget must check this at trace time and fall back to a
-    smaller-footprint formulation when False (a user's outer jax.jit
-    inlines the plain twin — the budget bump cannot apply there)."""
-    return _BUDGET_RAISED.get()
-
-
-def zjit(fn=None, *, static_argnames=(), scoped_vmem=None):
+def zjit(fn=None, *, static_argnames=()):
     """``jax.jit`` whose trace cache is additionally keyed on the current
     :class:`~zaftpu.config.DispatchConfig` snapshot.
 
     Drop-in for ``jax.jit``/``partial(jax.jit, static_argnames=...)`` at
     every jit boundary whose trace consults a ``ZAFTPU_*`` flag (directly or
-    through :mod:`zaftpu.core.fft` / :mod:`zaftpu.core.policy` /
-    :mod:`zaftpu.pallas`).
-
-    ``scoped_vmem``: optional zero-arg predicate — True when this call's
-    trace may contain a kernel needing the raised scoped-VMEM budget
-    (evaluated only when a top-level jit is possible). Defaults to
-    :func:`_wants_scoped_vmem` (the split4 Pallas consumers).
+    through :mod:`zaftpu.core.fft` / :mod:`zaftpu.core.policy`).
     """
     if fn is None:
-        return functools.partial(zjit, static_argnames=static_argnames,
-                                 scoped_vmem=scoped_vmem)
+        return functools.partial(zjit, static_argnames=static_argnames)
 
     def shim(*args, _dispatch=None, **kwargs):
         return fn(*args, **kwargs)
@@ -107,77 +53,13 @@ def zjit(fn=None, *, static_argnames=(), scoped_vmem=None):
                           default=None),
     ])
     shim.__name__ = getattr(fn, "__name__", "zjit_fn")
-
-    # Second shim with its own identity: jit objects over the SAME function
-    # share trace caches (see module docstring), so the compiler-options
-    # twin below needs a distinct wrapped callable.
-    def shim_vmem(*args, _dispatch=None, **kwargs):
-        return fn(*args, **kwargs)
-
-    shim_vmem.__signature__ = shim.__signature__
-    shim_vmem.__name__ = shim.__name__
-
-    statics = tuple(static_argnames) + ("_dispatch",)
-    jitted = jax.jit(shim, static_argnames=statics)
-    # TPU twin with a raised scoped-VMEM budget: XLA's layout assignment
-    # stages pallas buffers in scoped VMEM for a window of grid lengths and
-    # OOMs its 16 MiB stack when the split4 fused kernel is in the program
-    # (t=8192/12800/25841 at WL=2048 failed, 1024/4096/19200 passed —
-    # docs/tpu_results/split4_grid.json; this was round 3's "Mosaic 500").
-    # compiler_options are only legal on a TOP-LEVEL jit, hence here and
-    # not on the inner pallas jit.
-    jitted_vmem = jax.jit(
-        shim_vmem, static_argnames=statics,
-        compiler_options={"xla_tpu_scoped_vmem_limit_kib": _VMEM_LIMIT_KIB})
-
-    wants = scoped_vmem if scoped_vmem is not None else _wants_scoped_vmem
+    jitted = jax.jit(shim, static_argnames=tuple(static_argnames)
+                     + ("_dispatch",))
 
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
-        import dataclasses
-
-        from zaftpu.utils.devcache import _tracing_active
-
-        snapshot = DispatchConfig.current()
-        if _tracing_active():
-            # Nested in an outer trace (ours or a user's): the plain twin
-            # inlines and the enclosing budget state — set by OUR outer
-            # wrapper, or False under a user jit — stays authoritative.
-            # Do not touch the context variable; DO key the nested trace
-            # on it (budget_raised() is consulted at trace time by kernel
-            # dispatch, so a trace cached under one budget state must not
-            # replay under the other — the zjit trace-coherence rule).
-            snapshot = dataclasses.replace(snapshot,
-                                           budget=_BUDGET_RAISED.get())
-            return jitted(*args, _dispatch=snapshot, **kwargs)
-        use_vmem = jax.default_backend() == "tpu" and bool(wants())
-        snapshot = dataclasses.replace(snapshot, budget=use_vmem)
-        j = jitted_vmem if use_vmem else jitted
-        token = _BUDGET_RAISED.set(use_vmem)
-        try:
-            return j(*args, _dispatch=snapshot, **kwargs)
-        finally:
-            _BUDGET_RAISED.reset(token)
+        return jitted(*args, _dispatch=DispatchConfig.current(), **kwargs)
 
     wrapper._zjit = jitted            # test/introspection hooks
-    wrapper._zjit_vmem = jitted_vmem
-    # Sum BOTH twins: under split4+Pallas on TPU the executing jit is the
-    # vmem twin, and retrace gates reading one cache alone would measure
-    # the wrong one (ADVICE round 4, low #3).
-    wrapper._cache_size = (
-        lambda: jitted._cache_size() + jitted_vmem._cache_size())
+    wrapper._cache_size = jitted._cache_size
     return wrapper
-
-
-def _wants_scoped_vmem() -> bool:
-    """Default twin predicate: the split4 Pallas consumers (the fused
-    analysis kernel ~19.7M scoped; the slab-CQT kernel, which dispatches
-    regardless of ZAFTPU_FUSED), plus the two-output analysis kernel's
-    stacked operator when that dispatch is forced. Only consulted for a
-    top-level jit — the wrapper handles the nested-trace case."""
-    from zaftpu import pallas as _pallas
-    from zaftpu.core.policy import split4_enabled
-    from zaftpu.pallas.fused import fused2_wants_budget
-
-    return ((split4_enabled() and _pallas.enabled())
-            or fused2_wants_budget())

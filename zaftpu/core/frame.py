@@ -68,6 +68,14 @@ def extract_frames(padded: jnp.ndarray, window_length: int, step_length: int,
     return padded[..., idx]
 
 
+def windowed_frames(padded: jnp.ndarray, window: jnp.ndarray,
+                    window_length: int, step_length: int,
+                    number_times: int) -> jnp.ndarray:
+    """:func:`extract_frames` times the analysis window (one fused pass)."""
+    frames = extract_frames(padded, window_length, step_length, number_times)
+    return frames * window.astype(frames.dtype)
+
+
 def overlap_add(frames: jnp.ndarray, step_length: int) -> jnp.ndarray:
     """Constant overlap-add of ``(..., T, WL)`` frames at hop ``step``.
 
@@ -82,12 +90,10 @@ def overlap_add(frames: jnp.ndarray, step_length: int) -> jnp.ndarray:
         k = wl // s
         # chunk c of frame j lands at block j+c of the length-s block grid:
         # sum K top/bottom-padded chunk planes. The pads fuse as masked
-        # operand reads, so XLA emits ONE write pass over the output — the
-        # former zeros + .at[].add formulation compiled to K read-modify-
-        # write passes (measured 0.67 vs 0.30 ms on CPU, 2.81 vs 3.9 ms on
-        # the v5e at 10-min scale; docs/tpu_results/assembly_ola.json,
-        # gather_ola2.json). Bit-identical: same per-element addition order
-        # (c ascending, left-associated; the former 0 + x0 head is exact).
+        # operand reads, so XLA emits ONE write pass over the output — a
+        # zeros + .at[].add formulation compiles to K read-modify-write
+        # passes (measured 0.67 vs 0.30 ms on the CPU). Per-element addition
+        # order is c ascending, left-associated.
         lead_pad = [(0, 0)] * len(lead)
         chunks = frames.reshape(*lead, t, k, s)
         total = jnp.pad(chunks[..., :, 0, :],

@@ -1,10 +1,11 @@
-"""Compute-dtype policy: the bf16 MXU fast path.
+"""Compute-dtype policy: the bf16 operator-GEMM fast path.
 
 The framework's dtype rule is "follow the input" (f64 = CPU oracle, f32 =
-TPU fast path). TPUs additionally run bf16 matmuls at 2-4x the f32 MXU rate
-with native f32 accumulation, and the framework's heaviest compute is exactly
-matmuls against precomputed operators: the fused time-domain CQT kernel
-(2 x (T, 32768) x (32768, 144) per workload — reference workload
+accelerator fast path). Accelerators additionally run bf16 matmuls with f32
+accumulation far faster than f32 ones (on the H100 the bf16 tensor-core rate
+is ~15x the f32 CUDA-core rate), and the framework's heaviest compute is
+exactly matmuls against precomputed operators: the fused time-domain CQT
+kernel (2 x (T, 32768) x (32768, 144) per workload — reference workload
 zaf.py:627-633), the mel filterbank product (zaf.py:369-373), and the MFCC
 DCT-II matrix (zaf.py:445). FFTs stay in f32/f64 (complex bf16 does not
 exist) — this policy only lowers the *operands of operator matmuls* to bf16
@@ -13,7 +14,7 @@ while keeping accumulation and all activations in f32.
 Usage::
 
     with zaftpu.compute_dtype("bfloat16"):
-        spec = zaftpu.cqtspectrogram(x_f32, sr, 25, kernel)  # bf16 MXU
+        spec = zaftpu.cqtspectrogram(x_f32, sr, 25, kernel)  # bf16 GEMMs
 
 or process-wide with ``ZAFTPU_DTYPE=bfloat16``. Accuracy vs f32 is gated in
 tests/test_bf16.py at documented SNR thresholds.
@@ -24,6 +25,7 @@ from __future__ import annotations
 import contextlib
 import os
 
+import jax
 import jax.numpy as jnp
 
 _STATE: dict = {"override": None}
@@ -47,7 +49,7 @@ def matmul_dtype():
 
 @contextlib.contextmanager
 def compute_dtype(dtype):
-    """Context manager selecting the MXU-operand dtype for operator matmuls.
+    """Context manager selecting the operand dtype for operator matmuls.
 
     ``"bfloat16"``/``"bf16"`` enables the bf16 fast path; ``"float32"``/
     ``None`` restores input-following behavior (and overrides the env var
@@ -66,16 +68,12 @@ def compute_dtype(dtype):
         _STATE["override"] = prev
 
 
-# Transforms the bf16 dial must NOT lower, because their roofline says bf16
-# cannot pay: their operator matmuls are a rounding error next to the rfft
-# that feeds them (MFCC's DCT-II is (T, 40) @ (40, 40); the mel filterbank
-# product is (T, 1024) @ (1024, 40) with a 40-lane output — both far below
-# MXU saturation), so lowering buys ~nothing and costs real accuracy in the
-# log domain. Measured on v5e (docs/tpu_results/bf16.json): MFCC +1%
-# throughput for 35.9 dB — ~100 dB of accuracy for noise-level speedup.
-# Contrast the CQT, whose 32k-contraction operator GEMMs are
-# bandwidth-bound on operand bytes: bf16 there is +98% at 55.6 dB and stays
-# policy-controlled.
+# Transforms the bf16 dial must NOT lower: their operator matmuls are a
+# rounding error next to the rfft that feeds them (MFCC's DCT-II is
+# (T, 40) @ (40, 40); the mel filterbank product is (T, 1024) @ (1024, 40)),
+# so lowering buys ~nothing and costs real accuracy in the log domain
+# (~36 dB MFCC SNR vs f32). The CQT's 32k-contraction operator GEMMs are the
+# transform the dial is for and stay policy-controlled.
 BF16_EXEMPT = frozenset({"mfcc", "melspectrogram"})
 
 
@@ -96,15 +94,12 @@ def operator_dtype(input_dtype, transform: str | None = None):
 def matmul_precision():
     """XLA precision for exact-path (non-bf16) operator matmuls.
 
-    ``ZAFTPU_PRECISION``: ``highest`` (default — 6-pass bf16 decomposition,
-    true f32 products), ``split4`` (manual 4-pass scheme, ~104 dB vs f64 at
-    2/3 the MXU cost — see :func:`real_matmul`; non-GEMM sites fall back to
-    HIGHEST), ``high`` (3 passes, ~f32 for audio-range data), or ``default``
-    (XLA's single bf16 pass — only meaningful for A/B measurement, as it
-    makes f32 matmuls bf16-accurate on TPU).
+    ``ZAFTPU_PRECISION``: ``highest`` (default — true f32 products),
+    ``split4`` (manual 4-pass bf16 scheme, ~104 dB vs f64 — see
+    :func:`real_matmul`; non-GEMM sites fall back to HIGHEST), ``high``, or
+    ``default`` (the backend's own f32 matmul mode — TF32 on the GPU, about
+    three decimal digits; only meaningful for A/B measurement).
     """
-    import jax
-
     env = os.environ.get("ZAFTPU_PRECISION", "highest").lower()
     table = {"default": jax.lax.Precision.DEFAULT,
              "high": jax.lax.Precision.HIGH,
@@ -125,53 +120,46 @@ def split4_enabled() -> bool:
     return os.environ.get("ZAFTPU_PRECISION", "highest").lower() == "split4"
 
 
+def bf16_dot(x, y):
+    """``x @ y`` over bf16 operands with f32 accumulation and output.
+
+    Off the CPU this is the native bf16 x bf16 -> f32 dot (tensor cores on
+    the GPU). CPU XLA has no BF16 x BF16 -> F32 dot thunk (a shard_map
+    program containing one fails to run), so there the bf16 -> f32 casts —
+    which are exact — feed an f32 dot that computes the same products.
+    """
+    if jax.default_backend() == "cpu":
+        return jnp.matmul(x.astype(jnp.float32), y.astype(jnp.float32),
+                          preferred_element_type=jnp.float32)
+    return jnp.matmul(x, y, preferred_element_type=jnp.float32)
+
+
 def _split4_matmul(a, b):
-    """``a @ b`` as four single-pass bf16 MXU GEMMs with f32 accumulation.
+    """``a @ b`` as four single-pass bf16 GEMMs with f32 accumulation.
 
     Each f32 operand splits exactly into a bf16 pair ``x = hi + lo + eps``
     (``hi = bf16(x)``, ``lo = bf16(x - hi)``, ``|eps| ~ 2^-17 |x|``); the
     product expands to four bf16 x bf16 terms, ALL kept — XLA's
-    ``Precision.HIGH`` is the same idea but drops ``lo @ lo``, which is what
-    caps it at ~95 dB (measured 94.9 dB round trip, just under the 96 dB
-    16-bit-audio gate; docs/tpu_results/stft_engines.json). Keeping the
-    fourth term leaves only the ``eps`` truncation: ~104 dB predicted, at 4
-    MXU passes vs HIGHEST's 6 (1.5x GEMM throughput). Terms accumulate
+    ``Precision.HIGH`` is the same idea but drops ``lo @ lo``, which caps it
+    near 95 dB, just under the 96 dB 16-bit-audio gate. Keeping the fourth
+    term leaves only the ``eps`` truncation: ~104 dB. Terms accumulate
     smallest-first in f32.
     """
-    import jax
-
-    if jax.default_backend() == "tpu":
-        def mm(x, y):
-            return jnp.matmul(x, y, preferred_element_type=jnp.float32)
-    else:
-        # CPU XLA has no BF16 x BF16 -> F32 dot thunk; the bf16 -> f32 casts
-        # are exact, so an f32 dot of the rounded operands computes the same
-        # products the MXU single pass would.
-        def mm(x, y):
-            return jnp.matmul(x.astype(jnp.float32), y.astype(jnp.float32))
-    return _split4_contract(a, b, mm)
+    a, b = jnp.asarray(a), jnp.asarray(b)
+    ah, al = _bf16_split(a)
+    bh, bl = _bf16_split(b)
+    return (((bf16_dot(al, bl) + bf16_dot(al, bh)) + bf16_dot(ah, bl))
+            + bf16_dot(ah, bh))
 
 
 def _bf16_split(x):
     """Exact bf16 pair ``(hi, lo)`` with ``x = hi + lo + eps``,
-    ``|eps| ~ 2^-17 |x|``. MUST go through ``lax.reduce_precision``: a plain
-    f32->bf16->f32 cast round trip is elided by XLA's excess-precision rule
-    on TPU, which zeroes the lo terms and silently collapses the split
-    scheme to one bf16 pass (measured 52.6 dB vs 109.2 dB with
-    reduce_precision on the v5e chip)."""
-    import jax
-
+    ``|eps| ~ 2^-17 |x|``. Goes through ``lax.reduce_precision``: XLA may
+    elide a plain f32->bf16->f32 cast round trip under its excess-precision
+    rule, which would zero the lo terms and silently collapse the split
+    scheme to one bf16 pass."""
     hf = jax.lax.reduce_precision(x, exponent_bits=8, mantissa_bits=7)
     return hf.astype(jnp.bfloat16), (x - hf).astype(jnp.bfloat16)
-
-
-def _split4_contract(a, b, mm):
-    """The four-pass bf16-split contraction over any GEMM-shaped ``mm``,
-    terms accumulated smallest-first in f32."""
-    a, b = jnp.asarray(a), jnp.asarray(b)
-    ah, al = _bf16_split(a)
-    bh, bl = _bf16_split(b)
-    return ((mm(al, bl) + mm(al, bh)) + mm(ah, bl)) + mm(ah, bh)
 
 
 def real_matmul(a, b, bandwidth_bound=False):
@@ -180,17 +168,16 @@ def real_matmul(a, b, bandwidth_bound=False):
     Under ``ZAFTPU_PRECISION=split4`` (f32 operands only — the f64 oracle
     path never lowers) runs :func:`_split4_matmul`; otherwise a plain matmul
     at :func:`matmul_precision`. ``bandwidth_bound=True`` marks GEMMs whose
-    cost is HBM traffic, not MXU passes (tiny output width, huge
+    cost is memory traffic, not arithmetic (tiny output width, huge
     contraction — the CQT's hop-width slab GEMMs at F=144): for those the
     split's extra operand materialization only adds bytes, so the dial
-    keeps HIGHEST (measured: CQT 886k fr/s HIGHEST vs 729k under split4,
-    docs/tpu_results/suite.json 2026-08-17).
+    keeps HIGHEST.
     """
     # Narrow outputs are bandwidth-bound regardless of the caller's flag:
-    # the split streams the wide activation from HBM four times while the
-    # MXU is nowhere near saturated at N < 256 (the measured CQT case is
-    # N=144; the mel filterbank is N=40, the MFCC DCT N=20). The hot GEMMs
-    # split4 exists for are N >= 1024 (DFT/MDCT operators).
+    # the split streams the wide activation from memory four times for a
+    # GEMM at N < 256 (the CQT case is N=144; the mel filterbank is N=40,
+    # the MFCC DCT N=20). The GEMMs split4 exists for are N >= 1024
+    # (DFT/MDCT operators).
     if (split4_enabled() and not bandwidth_bound
             and b.shape[-1] >= 256
             and a.dtype == jnp.float32
@@ -200,65 +187,23 @@ def real_matmul(a, b, bandwidth_bound=False):
                       precision=matmul_precision())
 
 
-def real_matmul_tn(a, b):
-    """``einsum('...kt,kn->...tn', a, b)`` honoring the precision dial — the
-    transposed-LHS twin of :func:`real_matmul` (contraction over the leading
-    axis of both operands, so a bins-major fold output feeds the MXU without
-    a materialized transpose — see :func:`zaftpu.core.fft.direct_real_ifft_t`).
+def operator_matmul(a, b, bandwidth_bound=False):
+    """``a @ b`` against a precomputed operator ``b`` under the dtype
+    policy: a bf16 operator lowers ``a`` to bf16 (:func:`bf16_dot` — one
+    bf16 GEMM, f32 accumulation); any other operator dtype is promoted to
+    ``a``'s dtype and computed at :func:`matmul_precision` (or the split4
+    scheme under that dial — ``bandwidth_bound=True`` opts a traffic-bound
+    GEMM out, see :func:`real_matmul`).
+
+    The explicit precision matters: without it XLA may run an f32 matmul in
+    a reduced-precision mode (TF32 on the GPU keeps about three decimal
+    digits), which would make the framework's "f32" operator matmuls
+    silently low-accurate and the bf16/f32 A/B meaningless. So the dtype
+    dial is honest: f64 = oracle, f32 = accurate fast path, bf16 = fastest
+    GEMMs at documented SNR.
     """
-    import jax
-
-    def mm_hi(x, y):
-        return jnp.einsum("...kt,kn->...tn", x, y,
-                          preferred_element_type=x.dtype,
-                          precision=matmul_precision())
-
-    if (split4_enabled() and b.shape[-1] >= 256
-            and a.dtype == jnp.float32
-            and jnp.dtype(b.dtype) == jnp.float32):
-        if jax.default_backend() == "tpu":
-            def mm(x, y):
-                return jnp.einsum("...kt,kn->...tn", x, y,
-                                  preferred_element_type=jnp.float32)
-        else:
-            def mm(x, y):
-                return jnp.einsum("...kt,kn->...tn", x.astype(jnp.float32),
-                                  y.astype(jnp.float32))
-        return _split4_contract(a, b, mm)
-    return mm_hi(a, jnp.asarray(b).astype(a.dtype))
-
-
-def mxu_matmul(a, b, bandwidth_bound=False):
-    """``a @ b`` against a precomputed operator ``b`` with TPU mixed
-    precision: a bf16 operator lowers ``a`` to bf16 for the MXU (one systolic
-    pass, f32 accumulation); any other operator dtype is promoted to ``a``'s
-    dtype and computed at ``Precision.HIGHEST`` (or the split4 scheme under
-    that dial — ``bandwidth_bound=True`` opts a traffic-bound GEMM out, see
-    :func:`real_matmul`).
-
-    The explicit ``HIGHEST`` matters: XLA's *default* matmul precision on TPU
-    truncates f32 operands to bf16 (a single MXU pass) — bit-identical to the
-    explicit bf16 path, which would make the framework's "f32" operator
-    matmuls silently bf16-accurate and the bf16/f32 A/B meaningless (observed
-    on hardware 2026-08-17: SNR(bf16 vs f32) = inf). ``HIGHEST`` selects the
-    6-pass bf16 decomposition that recovers true f32 products, so the dtype
-    dial is honest: f64 = oracle, f32 = accurate fast path, bf16 = max MXU
-    rate at documented SNR.
-    """
-    import jax
-
     if b.dtype == jnp.bfloat16:
-        a16 = a.astype(jnp.bfloat16)
-        if jax.default_backend() == "tpu":
-            acc = jnp.matmul(a16, b, preferred_element_type=jnp.float32)
-        else:
-            # CPU XLA has no BF16 x BF16 -> F32 dot thunk (it surfaces as
-            # UNIMPLEMENTED inside shard_map). Emulate: the bf16 -> f32
-            # casts are exact, so an f32 dot of the rounded operands
-            # computes the same products the MXU would, accumulated in f32.
-            acc = jnp.matmul(a16.astype(jnp.float32),
-                             b.astype(jnp.float32),
-                             preferred_element_type=jnp.float32)
+        acc = bf16_dot(a.astype(jnp.bfloat16), b)
         out = jnp.float32 if a.dtype == jnp.bfloat16 else a.dtype
         return acc.astype(out)
     if not jnp.issubdtype(a.dtype, jnp.complexfloating):

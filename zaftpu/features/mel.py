@@ -6,27 +6,24 @@ rounded to integer FFT bins *before* triangle construction, left/right
 `linspace` ramps with the reference's -1 start offsets, minimum mel evaluated
 at one FFT bin — not 0 Hz). Unlike the reference, which stores it CSR and
 densifies it on *every* call (zaf.py:373,445), the build keeps it dense from
-the start: at (n_mels, WL/2) = (40, 1024) scale a dense MXU matmul beats any
-sparse representation on TPU by a wide margin.
+the start: at (n_mels, WL/2) = (40, 1024) scale one dense GEMM is the
+natural device formulation.
 
 MFCC's DCT-II over the mel axis (reference: ``scipy.fftpack.dct(axis=0,
 norm="ortho")``, zaf.py:443-449) is applied as a precomputed orthonormal
-DCT-II matrix matmul — a (M, M) x (M, T) MXU product.
+DCT-II matrix matmul — a (M, M) x (M, T) product.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache, partial
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
 from zaftpu.core.dispatch import zjit
-from zaftpu.core import frame as _frame
 from zaftpu.core import policy as _policy
 from zaftpu.core import validate as _validate
-from zaftpu.pallas import guarded as _pallas_guarded
 from zaftpu.transforms.stft import _stft_frames_half
 
 # Matches np.finfo(float).eps used by the reference at zaf.py:445 regardless
@@ -94,7 +91,7 @@ def dct_ii_ortho_matrix(size: int) -> np.ndarray:
     """Orthonormal DCT-II matrix: ``C[k,n]=s_k sqrt(2/N) cos(pi k(2n+1)/2N)``.
 
     Equivalent to ``scipy.fftpack.dct(eye(N), norm='ortho')`` — the MFCC
-    cepstral transform (reference zaf.py:443-449) as a single MXU matmul.
+    cepstral transform (reference zaf.py:443-449) as a single matmul.
     """
     n = np.arange(size, dtype=np.float64)
     k = n[:, None]
@@ -104,48 +101,11 @@ def dct_ii_ortho_matrix(size: int) -> np.ndarray:
     return mat
 
 
-def _mel_wants_vmem():
-    """The fused mel kernel's stacked two-component operator (~19 MB)
-    needs the raised twin in both precision modes."""
-    from zaftpu.core.dispatch import _wants_scoped_vmem
-    from zaftpu.pallas import melfused as _melfused
-
-    return _wants_scoped_vmem() or _melfused.wants_budget()
-
-
-def mel_rows_fused_or_none(audio_signal, window_function, fbank,
-                           step_length, power):
-    """Dispatch the single-pass mel front-end kernel
-    (pallas/melfused.py) when eligible; ``None`` selects the split
-    half-spectrum path. Shared by the plain cores and the sharded bodies
-    so sharded == single-device stays bit-identical."""
-    from zaftpu.core import fft as _fft
-    from zaftpu.pallas import melfused as _melfused
-
-    wl = window_function.shape[0]
-    if not (_fft.direct_engine_enabled(wl)
-            and fbank.dtype == jnp.float32
-            and _melfused.kernel_wanted(wl, step_length,
-                                        audio_signal.dtype,
-                                        audio_signal.ndim)):
-        return None
-    pad_front, pad_back, t = _frame.stft_padding(audio_signal.shape[-1],
-                                                 wl, step_length)
-    padded = jnp.pad(audio_signal, [(pad_front, pad_back)])
-    return _melfused.mel_rows(padded, window_function, fbank.T, wl,
-                              step_length, t, power)
-
-
-@partial(zjit, static_argnames=("step_length",),
-         scoped_vmem=_mel_wants_vmem)
+@partial(zjit, static_argnames=("step_length",))
 def _melspectrogram_core(audio_signal, window_function, fbank, step_length):
-    rows = mel_rows_fused_or_none(audio_signal, window_function, fbank,
-                                  step_length, power=False)
-    if rows is not None:
-        return jnp.swapaxes(rows, -1, -2)
     half = _stft_frames_half(audio_signal, window_function, step_length)
     mag = jnp.abs(half[..., 1:])  # (..., T, WL/2): DC dropped, Nyquist kept
-    mel = _policy.mxu_matmul(mag, fbank.T)
+    mel = _policy.operator_matmul(mag, fbank.T)
     return jnp.swapaxes(mel, -1, -2)
 
 
@@ -172,12 +132,11 @@ def _resolve_mel_args(window_function, step_length, mel_filterbank, config,
     return window_function, step_length, mel_filterbank
 
 
-@_pallas_guarded
 def melspectrogram(audio_signal, window_function=None, step_length=None,
                    mel_filterbank=None, *, config=None):
     """Mel spectrogram ``(number_mels, number_times)``.
 
-    Magnitude spectrogram x filterbank as one batched MXU matmul (reference
+    Magnitude spectrogram x filterbank as one batched matmul (reference
     semantics zaf.py:324-375). ``mel_filterbank`` may be the dense array from
     :func:`melfilterbank` or a scipy sparse matrix; alternatively pass
     ``config=MelConfig(...)`` to derive all three parameters.
@@ -199,30 +158,24 @@ def melspectrogram(audio_signal, window_function=None, step_length=None,
                                 step_length)
 
 
-@partial(zjit, static_argnames=("step_length", "number_coefficients"),
-         scoped_vmem=_mel_wants_vmem)
+@partial(zjit, static_argnames=("step_length", "number_coefficients"))
 def _mfcc_core(audio_signal, window_function, fbank, dct_mat, step_length,
                number_coefficients):
-    mel = mel_rows_fused_or_none(audio_signal, window_function, fbank,
-                                 step_length, power=True)
-    if mel is None:
-        half = _stft_frames_half(audio_signal, window_function,
-                                 step_length)
-        power = jnp.abs(half[..., 1:]) ** 2  # power spec (zaf.py:437-439)
-        mel = _policy.mxu_matmul(power, fbank.T)
+    half = _stft_frames_half(audio_signal, window_function, step_length)
+    power = jnp.abs(half[..., 1:]) ** 2  # power spec (zaf.py:437-439)
+    mel = _policy.operator_matmul(power, fbank.T)
     logmel = jnp.log(mel + jnp.asarray(_LOG_EPS, dtype=mel.dtype))
-    cepstra = _policy.mxu_matmul(logmel, dct_mat.T)
+    cepstra = _policy.operator_matmul(logmel, dct_mat.T)
     # Keep coefficients 1..C — the 0th is dropped (zaf.py:452).
     return jnp.swapaxes(cepstra[..., 1:number_coefficients + 1], -1, -2)
 
 
-@_pallas_guarded
 def mfcc(audio_signal, window_function=None, step_length=None,
          mel_filterbank=None, number_coefficients=None, *, config=None):
     """MFCCs ``(number_coefficients, number_times)`` (reference zaf.py:378-454).
 
     Power spectrogram -> mel matmul -> log(+eps) -> orthonormal DCT-II along
-    the mel axis -> coefficients 1..C. Both matmuls run on the MXU.
+    the mel axis -> coefficients 1..C, both matmuls on the device.
     Alternatively pass ``config=MelConfig(...)`` to derive every parameter.
     """
     from zaftpu.utils.devcache import as_device_constant, device_constant

@@ -13,8 +13,9 @@ blocks therefore needs exactly two one-hop neighbor exchanges
   boundary samples that belong to the right neighbor's region; they are
   pushed right and summed (:func:`push_right_sum`).
 
-Both are ``jax.lax.ppermute`` hops on the mesh's frame axis — ring traffic
-over ICI, no all-gathers. Edge devices receive zeros, which is exactly
+Both are ``jax.lax.ppermute`` hops on the mesh's frame axis — neighbour
+traffic over the device interconnect (NVLink on a GPU host), no
+all-gathers. Edge devices receive zeros, which is exactly
 correct because callers arrange the global padding so everything beyond the
 sharded body is zero. When the halo exceeds one block (tiny shards, CQT's
 ~31k-sample reach) the pull escalates to multiple hops automatically.

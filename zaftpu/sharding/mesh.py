@@ -4,8 +4,8 @@ The reference is single-process (SURVEY.md §2.3) — this module is the
 framework's scaling substrate. One canonical 1-D mesh axis, ``"frames"``,
 carries the sequence/frame-parallel dimension (long recordings sharded by
 contiguous frame blocks); an optional leading ``"batch"`` axis carries data
-parallelism over independent signals. Collectives ride ICI within a slice;
-``initialize_distributed`` brings up the multi-host runtime for pod slices.
+parallelism over independent signals. On a GPU host the collectives ride
+NVLink; ``initialize_distributed`` brings up the multi-host runtime.
 """
 
 from __future__ import annotations
@@ -43,9 +43,10 @@ def make_mesh_2d(batch: int, frames: int, devices=None) -> Mesh:
 def initialize_distributed(**kwargs) -> None:
     """Bring up the JAX multi-host runtime (no-op if already initialized).
 
-    On a multi-host TPU pod slice call this once per process before building
-    meshes; coordinates via ``jax.distributed.initialize`` (TPU coordinator
-    autodetection applies when no kwargs are given).
+    Call this once per process before building meshes; the kwargs go to
+    ``jax.distributed.initialize`` (``coordinator_address``,
+    ``num_processes``, ``process_id`` — required where no cluster manager
+    tells JAX of the cluster).
     """
     try:
         jax.distributed.initialize(**kwargs)

@@ -11,8 +11,7 @@ scalings. Differences from the reference:
   (half the work; every output bin the transforms read lies in the
   non-negative-frequency half) — routed through :mod:`zaftpu.core.fft`, so
   ``ZAFTPU_FFT=matmul`` applies (the type-IV 8N embedding reaches 32768
-  points at N=4096, exactly the size whose native TPU FFT compile is
-  pathological);
+  points at N=4096);
 * no in-place endpoint mutation — pre/post scalings are expressed as masked
   multiplies that XLA fuses into the surrounding ops.
 
@@ -39,7 +38,7 @@ _SQRT2 = np.sqrt(2.0)
 def _direct_matrix(kind: str, transform_type: int, n: int) -> np.ndarray:
     """The orthonormal DCT/DST as one ``(N, N)`` matrix (float64 host math).
 
-    Under the MXU matmul engine the zero-embedded-FFT formulation is
+    Under the matmul engine the zero-embedded-FFT formulation is
     wasteful: the type II/III 4N embedding costs ~16x and the type IV 8N
     embedding ~64x the FLOPs of applying the transform matrix directly
     (``x @ M``). Closed forms of the same orthonormal transforms the
@@ -84,9 +83,7 @@ def _apply_direct(x: jnp.ndarray, kind: str,
     from zaftpu.core.policy import real_matmul
 
     # Trace-time constant (not a runtime argument): XLA owns the operator
-    # layout and folds it into the GEMM — the argument form measured ~18%
-    # slower on the raw (1024, 2048) batch GEMM (docs/perf.md round 4,
-    # "operator constants").
+    # layout and folds it into the GEMM.
     rdtype = np.float32 if x.dtype == jnp.float32 else np.float64
     matrix = jnp.asarray(
         _direct_matrix(kind, transform_type, x.shape[-1]).astype(rdtype))

@@ -6,7 +6,7 @@ TDAC window (Vorbis sine slope or KBD — see ``zaftpu.core.windows``), inverse
 via batched zero-padded FFT and overlap-add with the reference's
 ``[F : -F-1]`` trim.
 
-TPU-first differences: the reference loops a per-frame FFT in the forward
+Differences from the reference: it loops a per-frame FFT in the forward
 direction "to avoid storing twice longer frames" (comment zaf.py:1059) — a
 host-memory concern that does not apply here; both directions are single
 batched FFTs over frames-major ``(T, WL)`` arrays, the twiddle multiplies are
@@ -24,8 +24,8 @@ import numpy as np
 
 from zaftpu.core.dispatch import zjit
 from zaftpu.core import fft as _fft
+from zaftpu.core import frame as _frame
 from zaftpu.core import validate as _validate
-from zaftpu.pallas import guarded as _pallas_guarded
 
 
 @lru_cache(maxsize=32)
@@ -56,7 +56,7 @@ def _direct_forward_matrix(window_length: int):
     ``coeffs[k] = Re(post[k] * FFT(frames_w * pre)[k])`` is linear in the
     windowed frame, so the pre-twiddle, FFT, post-twiddle and real part fold
     into ``M[t, k] = Re(pre[t] * post[k] * exp(-2pi i tk/WL))`` — the MDCT
-    becomes a single ``(T, WL) @ (WL, WL/2)`` MXU GEMM (the matmul engine's
+    becomes a single ``(T, WL) @ (WL, WL/2)`` GEMM (the matmul engine's
     direct mode; reference chain zaf.py:1047-1071). float64 host math.
     """
     wl = window_length
@@ -80,26 +80,10 @@ def _direct_inverse_matrix(number_frequencies: int):
     return 2.0 * np.real(pre[:, None] * ang * post[None, :])
 
 
-@lru_cache(maxsize=8)
-def _direct_forward_ops_padded(window_length: int):
-    """:func:`_direct_forward_matrix` as the fused kernel's ``(1, WL,
-    F_pad)`` float32 stack (F = WL/2 is already lane-aligned for
-    power-of-two windows, so F_pad adds nothing there)."""
-    from zaftpu.pallas.fused import _f_pad
-
-    m = _direct_forward_matrix(window_length).astype(np.float32)
-    f = m.shape[1]
-    ops = np.zeros((1, window_length, _f_pad(f)), np.float32)
-    ops[0, :, :f] = m
-    return ops
-
-
 @zjit
 def _mdct_direct_core(audio_signal: jnp.ndarray,
                       window_function: jnp.ndarray) -> jnp.ndarray:
-    from zaftpu import pallas as _pallas
     from zaftpu.core.policy import real_matmul
-    from zaftpu.pallas import fused as _fused
 
     wl = window_function.shape[0]
     step = wl // 2
@@ -107,28 +91,12 @@ def _mdct_direct_core(audio_signal: jnp.ndarray,
     t = int(np.ceil(n / step)) + 1
     padded = jnp.pad(audio_signal, [(0, 0)] * (audio_signal.ndim - 1)
                      + [(step, (t + 1) * step - n)])
-    # split4 runs the fused kernel too since round 4 (the "Mosaic 500" was
-    # an XLA scoped-VMEM OOM, fixed at the zjit level — see
-    # windowed_frames_rfft / core/dispatch.py).
-    if (_pallas.enabled() and _pallas.fused_enabled()
-            and padded.ndim == 1 and padded.dtype == jnp.float32
-            and _fused.supported(wl, step, padded.dtype)):
-        # Fused framing+window+GEMM: the (T, WL) frame matrix never
-        # touches HBM (same kernel as the STFT analysis path — the MDCT
-        # operator is a single fused component, zaf.py:1047-1071 chain).
-        coeffs = _fused.frames_op(padded, window_function,
-                                  _direct_forward_ops_padded, step,
-                                  wl, step, t)
-    else:
-        frames = _pallas.windowed_frames(padded, window_function, wl, step, t)
-        # Trace-time constant: XLA owns the operator's layout and folds it
-        # into the GEMM. A runtime-argument operator measured 24-32%
-        # slower on the synthesis twin (docs/perf.md round 4, "operator
-        # constants") — same math, worse layout.
-        rdtype = (np.float32 if frames.dtype == jnp.float32
-                  else np.float64)
-        matrix = jnp.asarray(_direct_forward_matrix(wl).astype(rdtype))
-        coeffs = real_matmul(frames, matrix.astype(frames.dtype))
+    frames = _frame.windowed_frames(padded, window_function, wl, step, t)
+    # Trace-time constant: XLA owns the operator's layout and folds it into
+    # the GEMM.
+    rdtype = np.float32 if frames.dtype == jnp.float32 else np.float64
+    matrix = jnp.asarray(_direct_forward_matrix(wl).astype(rdtype))
+    coeffs = real_matmul(frames, matrix.astype(frames.dtype))
     return jnp.swapaxes(coeffs, -1, -2)
 
 
@@ -137,74 +105,28 @@ def _direct_inverse_windowed_matrix(number_frequencies: int,
                                     window_bytes: bytes):
     """:func:`_direct_inverse_matrix` with the TDAC window folded into its
     columns: ``(coeffs @ M) * win == coeffs @ (M * win)``, so the separate
-    post-GEMM elementwise pass over the ``(T, 2F)`` frame matrix (and its
-    fusion barrier before the Pallas OLA custom call) disappears. float64
-    host math; keyed by window content so the lru identity is stable and
-    the static ``wbytes`` jit key maps 1:1 to the operator."""
+    post-GEMM elementwise pass over the ``(T, 2F)`` frame matrix
+    disappears. float64 host math; keyed by window content so the lru
+    identity is stable and the static ``wbytes`` jit key maps 1:1 to the
+    operator."""
     win = np.frombuffer(window_bytes, dtype=np.float64)
     return _direct_inverse_matrix(number_frequencies) * win[None, :]
 
 
-def _imdct_ola(frames, f):
-    """Measured per-mode OLA dispatch for the inverse-MDCT synthesis tail
-    (docs/tpu_results/gather_ola2.json / assembly_ola.json, v5e 10-min):
-    at default precision XLA fuses the pads-sum XLA OLA into the inverse
-    GEMM's epilogue, beating the one-write Pallas kernel (4.96M vs 4.59M
-    frames/s); under split4 the 4-pass GEMM blocks that fusion and the
-    kernel wins (5.51M vs 4.76M). The two formulations are bit-identical,
-    so the dial never changes values. The ISTFT keeps the kernel in both
-    modes (14.10 vs 14.92 ms default)."""
-    from zaftpu import pallas as _pallas
-    from zaftpu.core import frame as _frame
-    from zaftpu.core.policy import split4_enabled
-
-    if _pallas.enabled() and not split4_enabled():
-        return _frame.overlap_add(frames, f)
-    return _pallas.overlap_add(frames, f)
-
-
-def _imdct_synth_wants_vmem():
-    from zaftpu.pallas import synth as _synth
-
-    return _synth.scoped_vmem_hint()
-
-
-def _imdct_synth_kernel(coeffs, f: int) -> bool:
-    """Dispatch the fused synthesis kernel for the inverse MDCT? Yes at
-    BOTH precision dials — the round-5 hardware grid (r5k4, v5e 600-s)
-    measured the one-pass kernel at 5.99M (HIGHEST) / 10.6M (split4)
-    frames/s vs 4.98M / 4.85M for the split GEMM+OLA programs, beating
-    even XLA's OLA-into-GEMM epilogue fusion that won round 4's A/B
-    (gather_ola2.json)."""
-    from zaftpu.pallas import synth as _synth
-
-    return _synth.kernel_wanted(2 * f, f, coeffs.dtype, coeffs.ndim, 1, f)
-
-
-@partial(zjit, static_argnames=("wbytes",),
-         scoped_vmem=_imdct_synth_wants_vmem)
+@partial(zjit, static_argnames=("wbytes",))
 def _imdct_direct_core(audio_mdct: jnp.ndarray, wbytes) -> jnp.ndarray:
     from zaftpu.core.policy import real_matmul
 
     f = audio_mdct.shape[-2]
     coeffs = jnp.swapaxes(audio_mdct, -1, -2)  # (..., T, F) frames-major
-    from zaftpu.pallas import synth as _synth
-
-    if _imdct_synth_kernel(coeffs, f):
-        # Fused inverse-GEMM + TDAC overlap-add in one Pallas pass — the
-        # (T, 2F) frame matrix never touches HBM (pallas/synth.py).
-        signal = _synth.imdct_ola(coeffs, f, wbytes)
-        return signal[..., f:signal.shape[-1] - f - 1]
-    # The window-folded (F, 2F) inverse operator as a TRACE-TIME CONSTANT
+    # The window-folded (F, 2F) inverse operator as a trace-time constant
     # (keyed by the static window bytes): XLA owns its layout and folds it
-    # into the GEMM. The round-3 runtime-argument form measured 3.77M vs
-    # 4.96M frames/s at 10-min scale — identical program, worse operand
-    # layout (docs/perf.md round 4, "operator constants").
+    # into the GEMM.
     rdtype = np.float32 if coeffs.dtype == jnp.float32 else np.float64
     matrix = jnp.asarray(
         _direct_inverse_windowed_matrix(f, wbytes).astype(rdtype))
     frames = real_matmul(coeffs, matrix.astype(coeffs.dtype))
-    signal = _imdct_ola(frames, f)
+    signal = _frame.overlap_add(frames, f)
     return signal[..., f:signal.shape[-1] - f - 1]
 
 
@@ -222,7 +144,7 @@ def _imdct_direct_core_unfused(audio_mdct: jnp.ndarray,
     matrix = jnp.asarray(_direct_inverse_matrix(f).astype(rdtype))
     frames = real_matmul(coeffs, matrix.astype(coeffs.dtype))
     frames = frames * window_function.astype(frames.dtype)
-    signal = _imdct_ola(frames, f)
+    signal = _frame.overlap_add(frames, f)
     return signal[..., f:signal.shape[-1] - f - 1]
 
 
@@ -239,8 +161,6 @@ def _host_window_bytes(window_function):
 @zjit
 def _mdct_core(audio_signal: jnp.ndarray, window_function: jnp.ndarray,
                pre: jnp.ndarray, post: jnp.ndarray) -> jnp.ndarray:
-    from zaftpu import pallas as _pallas
-
     wl = window_function.shape[0]
     step = wl // 2
     n = audio_signal.shape[-1]
@@ -248,7 +168,7 @@ def _mdct_core(audio_signal: jnp.ndarray, window_function: jnp.ndarray,
     # Pad `step` front and to (T+1)*step total behind (zaf.py:1036-1041).
     padded = jnp.pad(audio_signal, [(0, 0)] * (audio_signal.ndim - 1)
                      + [(step, (t + 1) * step - n)])
-    frames = _pallas.windowed_frames(padded, window_function, wl, step, t)
+    frames = _frame.windowed_frames(padded, window_function, wl, step, t)
     spectra = _fft.fft(frames * pre.astype(jnp.result_type(frames, pre)))
     coeffs = jnp.real(spectra[..., :step] * post)
     return jnp.swapaxes(coeffs, -1, -2)
@@ -272,7 +192,6 @@ def _resolve_mdct_window(window_function, config, like_dtype):
     return window_function
 
 
-@_pallas_guarded
 def mdct(audio_signal, window_function=None, *, config=None):
     """Modified discrete cosine transform.
 
@@ -316,13 +235,12 @@ def _imdct_core(audio_mdct: jnp.ndarray, window_function: jnp.ndarray,
     spectra = _fft.fft(coeffs * pre.astype(ctype), n=2 * f)
     frames = 2.0 * jnp.real(spectra * post) * window_function.astype(
         jnp.real(spectra).dtype)
-    signal = _imdct_ola(frames, f)
+    signal = _frame.overlap_add(frames, f)
     # Reference trim is [step : -step-1] — one sample shorter than the
     # padded length on the right (zaf.py:1182).
     return signal[..., f:signal.shape[-1] - f - 1]
 
 
-@_pallas_guarded
 def imdct(audio_mdct, window_function=None, *, config=None):
     """Inverse MDCT with time-domain aliasing cancellation.
 
